@@ -1,16 +1,14 @@
-"""learn_nerf_tpu: a TPU-native NeRF training and rendering framework.
+"""learn_nerf_tpu: a NeRF training and rendering framework in JAX.
 
-A from-scratch re-design of the capabilities of unixpickle/learn-nerf
-(reference mounted at /root/reference) for TPU hardware:
+A from-scratch re-design of the capabilities of unixpickle/learn-nerf for
+accelerators driven by XLA (its target is NVIDIA GPUs):
 
 * all hot-path math is batched ``[N, T]`` JAX traced once under ``jax.jit``
   (the reference orchestrates per-ray ``vmap`` + reshape-to-flat pipelines),
 * ray batches shard over a ``jax.sharding.Mesh`` ``data`` axis; gradients are
   combined by XLA collectives inserted by GSPMD,
-* the hot paths are deliberately plain XLA: every Pallas reformulation was
-  measured against it and lost or tied (gather/scatter are count-bound;
-  the fused render-chain kernel lives on as a documented recipe in
-  ``tools/pallas_recipe`` with the measurements in docs/DESIGN.md §3),
+* the hot paths are plain ``jnp``/``lax`` compiled by XLA, with no
+  hand-written kernel (docs/DESIGN.md §3),
 * checkpointing keeps the reference's pickle contract
   (``{"coarse", "fine", "background"}``, reference ``train.py:62-76``) while
   adding full train-state checkpoints.

@@ -1,8 +1,8 @@
-"""Occupancy-grid accelerated sampling (the TPU-native fast path).
+"""Occupancy-grid accelerated sampling (the fast path).
 
 The reference densely evaluates 64 coarse + 192 fine samples per ray
-through the full model (``learn_nerf/render.py``), which on TPU is
-gather-count-bound for hash-grid models.  This module implements the
+through the full model (``learn_nerf/render.py``), which for hash-grid
+models means ~100M table gathers per 4096-ray step.  This module implements the
 standard occupancy-grid acceleration (Instant NGP section 3 /
 NerfAcc, arXiv:2305.04966) in a fully static-shape formulation:
 
@@ -13,18 +13,17 @@ NerfAcc, arXiv:2305.04966) in a fully static-shape formulation:
   strided samples over the occupied span** (searchsorted-on-cumsum +
   gather, :func:`compact_occupied_strided`) — a fixed-size tensor of
   surviving samples, so the expensive field model runs on ``[N, K]``
-  points instead of ``[N, 192]``.  (The earlier first-K variant,
-  :func:`compact_occupied_samples`, is kept for experiments only — fog
-  in front of a surface soaks up all K first-K samples; see
-  docs/DESIGN.md section 3.)
+  points instead of ``[N, 192]``.  (Keeping the first K occupied
+  candidates instead fails: fog in front of a surface soaks up all K
+  samples; see docs/DESIGN.md section 3.)
 
 Everything is jit-friendly: no dynamic shapes, no host round-trips.
 """
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,12 +33,15 @@ Array = jnp.ndarray
 BIG = 1e9
 
 
-@flax.struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclass(frozen=True)
 class OccupancyGridState:
     """EMA density estimates per cell, flattened ``[resolution^3]``."""
 
     densities: Array
     step: Array  # int32 update counter
+
+    replace = dataclasses.replace
 
 
 @dataclass(frozen=True)
@@ -260,10 +262,10 @@ def superpool_densities(densities: Array, resolution: int, factor: int) -> Array
 
 
 #: Cells per packed occupancy word, (x, y, z).  4*4*2 = 32 cells = one
-#: uint32: TPU gather throughput is COUNT-bound (~110M rows/s regardless of
-#: row width, docs/DESIGN.md section 3), so packing a whole block's
-#: occupancy plus its max density into ONE 8-byte row lets a single gather
-#: answer the occupancy test for every candidate that lands in the block.
+#: uint32: packing a whole block's occupancy plus its max density into ONE
+#: 8-byte row lets a single gather answer the occupancy test for every
+#: candidate that lands in the block (premise that gather count sets the
+#: cost: not yet measured on the H100, docs/DESIGN.md section 3).
 BLOCK_DIMS = (4, 4, 2)
 
 
@@ -393,8 +395,8 @@ def compact_occupied_strided(
 ) -> Tuple[Array, Array, Array]:
     """Select ``count`` occupied candidates per ray, evenly strided.
 
-    :func:`compact_occupied_samples` keeps the *first* K occupied
-    candidates, which truncates coverage on rays with more than K occupied
+    Keeping the *first* K occupied
+    candidates truncates coverage on rays with more than K occupied
     cells: everything behind the K-th occupied cell is never sampled.
     During training that is a failure loop — low-density "fog" cells in
     front soak up all K samples, the real surface behind them never gets
@@ -403,7 +405,7 @@ def compact_occupied_strided(
     whole occupied span; each kept sample then represents ``c/count``
     candidate bins, returned as a per-ray delta scale for compositing.
     Rays with ``c <= count`` keep all occupied candidates exactly
-    (identical to :func:`compact_occupied_samples`).
+    (identical to keeping the first K).
 
     :param ts: ``[N, C]`` sorted candidate positions.
     :param occupied: ``[N, C]`` bool.
@@ -426,34 +428,3 @@ def compact_occupied_strided(
     sel_ts = jnp.take_along_axis(ts, idx, axis=1)
     delta_scale = jnp.maximum(c.astype(ts.dtype) / count, 1.0)
     return sel_ts, sel_mask, delta_scale
-
-
-def compact_occupied_samples(
-    ts: Array,
-    occupied: Array,
-    count: int,
-) -> Tuple[Array, Array]:
-    """Keep the first ``count`` occupied candidates per ray, in t order.
-
-    EXPERIMENT-ONLY: no production caller — the renderer routes through
-    :func:`compact_occupied_strided` (first-K starves surfaces behind
-    fog, docs/DESIGN.md section 3).  Kept for tools/exp_occ_profile.py
-    and as the numpy-pinned reference of the first-K semantics.
-
-    :param ts: ``[N, C]`` sorted candidate positions.
-    :param occupied: ``[N, C]`` bool.
-    :param count: K survivors per ray (static).
-    :return: ``(sel_ts [N, K], sel_mask [N, K] bool)`` — the masked (valid)
-             entries come first and are t-sorted; padding slots on rays
-             with fewer than K occupied candidates hold arbitrary
-             (unoccupied) ts and must be neutralized via ``sel_mask``.
-    """
-    keys = jnp.where(occupied, ts, BIG + ts)
-    # top_k on negated keys returns the K smallest; occupied candidates
-    # (key = t) sort before unoccupied ones (key = BIG + t), and both
-    # groups stay t-ordered.
-    neg_topk, _ = jax.lax.top_k(-keys, count)
-    sel_keys = -neg_topk  # [N, K], ascending
-    sel_mask = sel_keys < BIG
-    sel_ts = jnp.where(sel_mask, sel_keys, sel_keys - BIG)
-    return sel_ts, sel_mask

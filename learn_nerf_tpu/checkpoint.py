@@ -5,17 +5,18 @@ Two formats:
 * the reference's pickle contract — a dict ``{"coarse": params, "fine":
   params, "background": [3]}`` written atomically via tmp+rename
   (``learn_nerf/train.py:62-76``), consumed by every render/mesh CLI,
-* a full train-state checkpoint (params + Adam moments + step counter) via
-  ``flax.serialization`` msgpack, fixing the reference's lossy resume
-  (params-only, SURVEY.md section 5).
+* a full train-state checkpoint (params + Adam moments + step counter) as
+  an ``.npz`` of the flattened state, keyed by each leaf's pytree path,
+  fixing the reference's lossy resume (params-only, SURVEY.md section 5).
 """
 
+import io
 import os
 import pickle
 from typing import Any
 
 import jax
-from flax import serialization
+import numpy as np
 
 
 def _atomic_write(path: str, data: bytes) -> None:
@@ -49,7 +50,7 @@ def import_reference_params(params: Any) -> Any:
     """Convert a param tree saved by the *reference* implementation.
 
     Vanilla NeRF and Ref-NeRF trees transfer unchanged (both codebases
-    create the Dense layers in the same order, so flax names match — the
+    create the Dense layers in the same order, so param names match — the
     golden renderer-parity test proves byte compatibility).  Instant-NGP
     trees need renaming: the reference nests per-level tables as
     ``MultiresHashTableEncoding_i/HashTableEncoding_j/table``
@@ -98,45 +99,11 @@ def load_params_pickle(path: str) -> Any:
 
 
 def save_train_state(path: str, state: Any) -> None:
-    """Full train state (params + optimizer + step), atomic msgpack."""
-    _atomic_write(path, serialization.to_bytes(jax.device_get(state)))
-
-
-def _reconcile_ema(raw: Any, target: Any) -> Any:
-    """Migrate ``ema_params`` mismatches between a serialized state dict
-    and the loading template's state dict.
-
-    Four cases (the field was added after the first full-state format):
-
-    * blob lacks the field, template has it disabled (``None``): nothing.
-    * blob lacks it, template has an EMA tree: seed the average from the
-      blob's ``params`` (an old checkpoint resumed with ``--ema``).
-    * blob has a tree, template disabled: drop it (resumed without
-      ``--ema``; raw params continue, the stale average must not leak
-      into eval — see ``TrainLoop.eval_params``).
-    * blob has ``None`` (saved EMA-off), template enabled: seed from
-      ``params``.
-    """
-    if isinstance(raw, dict) and isinstance(target, dict):
-        t_ema, r_ema = target.get("ema_params"), raw.get("ema_params")
-        if "params" in target:  # a TrainState-shaped node
-            if t_ema is None:
-                raw.pop("ema_params", None)
-                if "ema_params" in target:
-                    raw["ema_params"] = None
-            elif r_ema is None:
-                import numpy as np
-
-                # COPIES, not aliases: the jitted step donates the whole
-                # state, and aliased leaves would hand XLA the same
-                # buffer twice (same invariant as train._ema_seed).
-                raw["ema_params"] = jax.tree_util.tree_map(
-                    np.array, raw.get("params")
-                )
-        for k, v in list(raw.items()):
-            if k in target:
-                _reconcile_ema(v, target[k])
-    return raw
+    """Full train state (params + optimizer + step), atomic ``.npz``."""
+    leaves = jax.tree_util.tree_flatten_with_path(jax.device_get(state))[0]
+    buf = io.BytesIO()
+    np.savez(buf, **{jax.tree_util.keystr(p): np.asarray(v) for p, v in leaves})
+    _atomic_write(path, buf.getvalue())
 
 
 def peek_train_state_step(path: str) -> int:
@@ -144,28 +111,42 @@ def peek_train_state_step(path: str) -> int:
     template (no loop construction needed — the cosine-schedule CLI uses
     this before it knows the remaining step budget).
 
-    Handles both on-disk layouts: ``TrainLoop.save_full`` serializes the
-    TrainState alone (top-level ``step``); the occupancy loop serializes
-    a ``(state, grid_state)`` tuple, which msgpack stores under keys
-    ``"0"``/``"1"`` — the grid state has its own ``step``, so the tuple
-    case must read element 0, not search for the key.
+    Handles both on-disk layouts: ``TrainLoop.save_full`` saves the
+    TrainState alone (key ``.step``); the occupancy loop saves a
+    ``(state, grid_state)`` tuple (key ``[0].step``) — the grid state has
+    its own ``step``, so the tuple case must read element 0.
     """
-    with open(path, "rb") as f:
-        raw = serialization.msgpack_restore(f.read())
-    node = raw if "step" in raw else raw["0"]
-    return int(node["step"])
+    with np.load(path) as f:
+        key = ".step" if ".step" in f.files else "[0].step"
+        return int(f[key])
 
 
 def load_train_state(path: str, template: Any) -> Any:
     """Restore a full train state into the structure of ``template``.
 
-    Tolerant of the ``ema_params`` field (added later): checkpoints
-    written before it load into current templates and vice versa — the
-    average is seeded from (or dropped with) the checkpointed params as
-    the template dictates.
+    Tolerant of the ``ema_params`` field: a checkpoint saved without an
+    average loads into an EMA template with the average seeded from the
+    checkpointed params (copies, not aliases: the jitted step donates the
+    whole state, and aliased leaves would hand XLA the same buffer twice),
+    and a checkpoint's average is dropped when the template has none
+    (resumed without ``--ema``: the stale average must not leak into eval
+    — see ``TrainLoop.eval_params``).
     """
-    with open(path, "rb") as f:
-        raw = serialization.msgpack_restore(f.read())
-    target = serialization.to_state_dict(template)
-    raw = _reconcile_ema(raw, target)
-    return serialization.from_state_dict(template, raw)
+    with np.load(path) as f:
+        raw = {k: f[k] for k in f.files}
+    flat, treedef = jax.tree_util.tree_flatten_with_path(template)
+    leaves = []
+    for p, leaf in flat:
+        key = jax.tree_util.keystr(p)
+        if key not in raw and ".ema_params" in key:
+            key = key.replace(".ema_params", ".params", 1)
+        if key not in raw:
+            raise KeyError(f"{path}: checkpoint has no leaf {key}")
+        value = raw[key]
+        if value.shape != np.shape(leaf):
+            raise ValueError(
+                f"{path}: leaf {key} has shape {value.shape}, the template "
+                f"expects {np.shape(leaf)}"
+            )
+        leaves.append(np.array(value))
+    return jax.tree_util.tree_unflatten(treedef, leaves)

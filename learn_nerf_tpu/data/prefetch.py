@@ -3,9 +3,8 @@
 ``jax.device_put`` (and the multi-process
 ``make_array_from_process_local_data`` used by ``TrainLoop.shard_batch``)
 only *enqueues* a transfer; keeping ``depth`` batches in flight overlaps
-the upload of batch ``i+1`` with the compute of step ``i``.  On remote TPU
-runtimes (where every host↔device interaction is a relay round trip) this
-hides the entire input-transfer latency behind the step.
+the upload of batch ``i+1`` with the compute of step ``i``, hiding the
+input-transfer latency behind the step.
 
 The reference has no input pipeline at all — its jitted step blocks on the
 host batch transfer every step (``learn_nerf/scripts/train_nerf.py:117-127``).

@@ -170,9 +170,8 @@ class ShuffledDataset:
             # contents CANNOT be validated against the current dataset, so
             # rebuild instead of trusting it — the one remaining silent-
             # staleness path in a layer that otherwise content-signs
-            # everything (VERDICT round 3 #8).  A rebuild costs one
-            # shuffle pass (~92 s for 16M rays); serving a stale cache
-            # costs a silently-wrong training run.
+            # everything.  A rebuild costs one shuffle pass; serving a
+            # stale cache costs a silently-wrong training run.
             print(
                 f"note: shuffle cache {done_path} predates content "
                 "signatures and cannot be validated; rebuilding",

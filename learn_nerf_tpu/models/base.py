@@ -2,8 +2,9 @@
 
 from typing import Dict, Tuple
 
-import flax.linen as nn
 import jax.numpy as jnp
+
+from .. import nn
 
 Array = jnp.ndarray
 FieldOutput = Tuple[Array, Array, Dict[str, Array]]

@@ -12,10 +12,10 @@ uniform +-1e-4 like ``instant_ngp.py:178-204``).
 
 from typing import Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from .. import nn
 from ..ops.encoding import sinusoidal_features
 from ..ops.hashgrid import dense_level_rows, hash_grid_encode
 from .base import FieldModel, FieldOutput
@@ -75,7 +75,7 @@ class InstantNGPModel(FieldModel):
     density_dim: int = 16
     density_layers: int = 1
     color_layers: int = 2
-    # "bfloat16" runs the small MLPs in bf16 on the MXU; the hash encoding
+    # "bfloat16" runs the small MLPs in bf16; the hash encoding
     # interpolation stays f32 (cheap, and the table grads need f32 scatter).
     compute_dtype: str = "float32"
 

@@ -21,10 +21,10 @@ Behaviour parity with the reference (``learn_nerf/ref_nerf.py:19-118``):
 
 import math
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from .. import nn
 from ..ops.encoding import sinusoidal_features
 from ..ops.sh import integrated_dir_enc
 from .base import FieldModel, FieldOutput

@@ -5,13 +5,13 @@ Architecture parity with the reference (``learn_nerf/model.py:30-62``):
 between but not after), softplus density head, and a 128-wide color branch
 conditioned on the direction embedding with tanh output in ``[-1, 1]``.
 
-The 256-wide Dense layers are the MXU workload; batches arrive as
+The 256-wide Dense layers are the matmul workload; batches arrive as
 ``[N, T, F]`` and stay that shape end to end.
 """
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from .. import nn
 from ..ops.encoding import sinusoidal_features
 from .base import FieldModel, FieldOutput
 
@@ -25,7 +25,7 @@ class NeRFModel(FieldModel):
     color_layer_dim: int = 128
     x_freqs: int = 10
     d_freqs: int = 4
-    # "bfloat16" runs the Dense stack on the MXU in bf16 (params stay f32).
+    # "bfloat16" runs the Dense stack in bf16 (params stay f32).
     # The sinusoidal encoding always computes in f32 — bf16's 8-bit mantissa
     # cannot represent high-frequency phase (arguments up to 2^9 * x).
     compute_dtype: str = "float32"

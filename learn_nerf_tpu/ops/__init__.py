@@ -1,10 +1,10 @@
-"""TPU-first numeric primitives for volumetric rendering.
+"""Numeric primitives for volumetric rendering.
 
 Everything in this package is shaped ``[N, ...]`` over a ray batch and is
 safe to trace under ``jax.jit`` / ``shard_map`` with the batch axis sharded
 over a device mesh.  No data-dependent Python control flow, no per-ray
-``vmap``: each op is written directly in batched form so XLA can tile it
-onto the VPU/MXU.
+``vmap``: each op is written directly in batched form so XLA can tile and
+fuse it.
 """
 
 from .geometry import ray_bbox_range

@@ -12,13 +12,11 @@ Semantics parity with the reference (``learn_nerf/instant_ngp.py:121-224``):
   weights so the encoding is C1 — required for Ref-NeRF analytic normals
   (``instant_ngp.py:143-155``).
 
-TPU-first shape discipline: corners are a broadcast axis (``[..., 8, 3]``)
-and each level is one batched gather; gradients to the tables lower to XLA
-scatter-adds.  No Pallas version exists on purpose: XLA's gather/scatter
-are count-bound and cannot be beaten from Pallas (no vectorized arbitrary
-VMEM gather on TPU) — measured in docs/DESIGN.md section 3; hash models
-are accelerated by evaluating fewer points (occupancy culling), not by
-reformulating the lookups.
+Shape discipline: corners are a broadcast axis (``[..., 8, 3]``) and each
+level is one batched gather; gradients to the tables lower to XLA
+scatter-adds (atomics on a GPU).  Hash models are accelerated by
+evaluating fewer points (occupancy culling), not by reformulating the
+lookups (docs/DESIGN.md section 3).
 """
 
 from typing import List, Sequence, Tuple
@@ -113,9 +111,10 @@ def _level_groups(
     PAIRS with the same lattice resolution and table size: their corner
     indices and interpolation weights are identical, so the pair can share
     ONE gather over a feature-concatenated ``[rows, 2F]`` table instead of
-    two ``[rows, F]`` gathers.  Gathers/scatter-adds are the count-bound
-    resource on TPU (docs/DESIGN.md section 3), so grouping halves the
-    dominant cost of the hash encoding at identical numerics.
+    two ``[rows, F]`` gathers: grouping halves the gather and scatter-add
+    count of the hash encoding at identical numerics.  That this count is
+    the dominant cost is a premise not yet measured on the H100
+    (docs/DESIGN.md section 3).
     """
     groups: List[Tuple[int, int]] = []
     i = 0
@@ -152,11 +151,9 @@ def hash_grid_encode(
 
     ``fuse_levels=True`` runs ONE gather over the per-level tables
     concatenated with row offsets instead of L separate gathers.  Kept for
-    experimentation but OFF by default: although isolated scatter
-    throughput improves with operand size (tools/exp_scatter.py), the
-    end-to-end occupancy train step measured 2.6x SLOWER fused (3.4k vs
-    8.9k rays/s on v5e) — XLA pipelines the independent per-group
-    gathers across the step far better than one rank-5 gather.
+    experimentation but OFF by default: the end-to-end occupancy train
+    step measured slower fused than per-group (premise not yet measured
+    on the H100).
 
     :param tables: per-level ``[rows_l, F]`` feature tables.
     :param x: ``[..., 3]`` points.

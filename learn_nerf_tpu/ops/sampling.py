@@ -9,7 +9,7 @@ Contract parity with the reference hierarchy
   (with a floor ``eps``), evaluated at stratified points in ``[0, 1]``,
   optionally merged with the coarse ts into a single sorted array.
 
-TPU-first differences:
+Differences from the reference:
 
 * everything is batched ``[N, T]`` — the reference's per-ray
   ``jax.vmap(jnp.interp)`` (``render.py:251``) becomes one batched
@@ -17,9 +17,8 @@ TPU-first differences:
 * the merge of coarse and fine ts is ``jnp.sort`` over the concatenation,
   same as the reference (``render.py:253-255``): the "smarter"
   rank-scatter merge (two searchsorteds + one scatter) was built and
-  MEASURED 36% SLOWER on TPU v5e (20.6k vs 28.0k rays/s — scatters are
-  count-bound; see :func:`merge_sorted` and docs/DESIGN.md section 3).
-  Do not "restore" it.
+  measured slower (premise not yet measured on the H100; see
+  :func:`merge_sorted` and docs/DESIGN.md section 3).
 """
 
 import jax
@@ -112,12 +111,10 @@ def inverse_cdf_ts(
 def merge_sorted(a: Array, b: Array) -> Array:
     """Merge two rowwise-sorted arrays into one sorted array.
 
-    Implemented as ``jnp.sort(concat)`` — measured on TPU v5e this is ~36%
-    faster end-to-end than a rank-scatter merge (two batched searchsorteds
-    + one scatter): XLA's bitonic sort vectorizes well on the VPU while
-    scatters hit a serial path (tools/exp_vanilla_gap.py: 28.0k vs 20.6k
-    rays/s on the vanilla train step).  Matches reference
-    ``render.py:253-255`` numerically.
+    Implemented as ``jnp.sort(concat)``, which measured faster end-to-end
+    than a rank-scatter merge (two batched searchsorteds + one scatter)
+    on the vanilla train step (premise not yet measured on the H100).
+    Matches reference ``render.py:253-255`` numerically.
 
     :param a: ``[N, Ta]`` sorted along axis 1.
     :param b: ``[N, Tb]`` sorted along axis 1.

@@ -12,7 +12,7 @@ Contract parity with the reference ``RaySamples`` math
   weights; rays that miss the bbox (``mask=False``) return the background.
 
 The sample axis T stays small (<=256) and on-chip; scaling is done by
-sharding N.  ``cumsum`` over T is a cheap VPU scan.
+sharding N.  ``cumsum`` over T is a cheap scan.
 """
 
 from typing import Dict, Tuple

@@ -3,7 +3,7 @@
 The scaling strategy (SURVEY.md section 2.5): rays are i.i.d., so the load-
 bearing axis is pure data parallelism — shard the ``[N, 3, 3]`` ray batch
 over a 1-D ``data`` mesh axis, replicate the (small) params, and let GSPMD
-insert the gradient ``psum`` over ICI.  A ``model`` axis is reserved in the
+insert the gradient ``psum`` across the devices.  A ``model`` axis is reserved in the
 mesh API for future tensor sharding but stays size 1 for these model sizes.
 
 Multi-host: call :func:`init_distributed` before touching devices; each
@@ -29,11 +29,12 @@ def init_distributed(
 ) -> None:
     """Initialize the JAX distributed runtime for multi-host meshes.
 
-    No-op for single-process runs (the common case on one chip/slice).
+    No-op for single-process runs (the common case: one process drives
+    every card of a host).
     With explicit flags it initializes exactly as asked; with NO flags it
     still calls ``jax.distributed.initialize()`` (argless autodetection)
     when the environment carries a multi-host launcher's coordinates —
-    otherwise a user launching on a multi-host slice without
+    otherwise a user launching on several hosts without
     ``--num_processes`` would silently get per-host independent models
     racing writes to the same checkpoint path.
     """
@@ -48,7 +49,6 @@ def init_distributed(
         for var in (
             "JAX_COORDINATOR_ADDRESS",  # jax.distributed's own env spec
             "COORDINATOR_ADDRESS",
-            "MEGASCALE_COORDINATOR_ADDRESS",  # multi-slice launchers
         )
     ):
         jax.distributed.initialize()

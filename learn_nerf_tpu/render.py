@@ -6,13 +6,13 @@ Output contract parity with the reference ``NeRFRenderer.render_rays``
 (``outputs``, ``rgbs``, ``densities``, ``alphas``, ``coords``) plus
 ``coarse_aux`` / ``fine_aux`` scalar aux-loss means.
 
-TPU-first design differences:
+Design differences from the reference:
 
 * one straight-line jitted program over ``[N, T]`` tensors — no per-ray
   ``vmap``, no ``[N*T, 3]`` flatten/reshape round-trips (the models accept
   leading batch dims directly),
 * the fine pass merges coarse and new samples via ``ops/sampling.
-  merge_sorted`` (sort-based — measured fastest on TPU, see its docstring),
+  merge_sorted`` (sort-based, see its docstring),
 * whole frames render as one device program: rays are tiled and scanned
   with ``lax.map`` inside a single jit instead of a chunked host loop with
   per-chunk device syncs (reference ``scripts/render_nerf.py:88-92``).
@@ -201,8 +201,8 @@ def render_frame(
     with ``lax.map`` so only one compiled program launches per frame.  With
     ``mesh``, the tiles distribute over the ``data`` axis with
     ``shard_map`` — each device scans its own tile subset with fully
-    replicated params, so a v5e-8 renders ~8x faster with zero collectives
-    in the hot path (outputs gather once at the end).
+    replicated params and zero collectives in the hot path (outputs
+    gather once at the end).
 
     :param rays: ``[M, 2, 3]`` rays in raster order.
     :param include_depth_outputs: also return ``alphas`` and ``coords``

@@ -11,9 +11,11 @@ import numpy as np
 
 from ..data.dataset import load_dataset
 from ..ops.geometry import ray_bbox_range
+from ..utils.device import use_compile_cache
 
 
 def main(argv=None):
+    use_compile_cache()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("data_dir")
     args = parser.parse_args(argv)

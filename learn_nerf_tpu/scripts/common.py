@@ -28,13 +28,13 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument(
         "--bf16",
         action="store_true",
-        help="run the model MLPs in bfloat16 on the MXU (params stay f32)",
+        help="run the model MLPs in bfloat16 (params stay f32)",
     )
 
 
 def add_occupancy_args(parser: argparse.ArgumentParser) -> None:
-    """Flags for the TPU-native occupancy-grid fast path (no reference
-    counterpart — the reference always dense-samples)."""
+    """Flags for the occupancy-grid fast path (no reference counterpart —
+    the reference always dense-samples)."""
     parser.add_argument(
         "--occupancy",
         action="store_true",
@@ -240,17 +240,15 @@ def add_baked_args(parser: argparse.ArgumentParser) -> None:
         help="bake the trained Instant-NGP spatial field onto a dense "
         "RESOLUTION^3 grid at startup and render from it (one 8-corner "
         "gather per sample instead of the full hash stack; requires "
-        "--instant_ngp --occupancy; on TPU backends RESOLUTION tops out "
-        "at 400 — the measured 2^31-byte per-kernel bake ceiling, "
-        "docs/DESIGN.md section 3; 384 is the measured-best full-quality "
-        "config)",
+        "--instant_ngp --occupancy; 384 with --baked_pack 4 is the "
+        "recommended full-quality config)",
     )
     parser.add_argument(
         "--baked_dtype",
         type=str,
         default="bfloat16",
         choices=("bfloat16", "float32"),
-        help="baked grid storage dtype (bfloat16 halves HBM)",
+        help="baked grid storage dtype (bfloat16 halves memory)",
     )
     parser.add_argument(
         "--baked_cache",
@@ -265,8 +263,7 @@ def add_baked_args(parser: argparse.ArgumentParser) -> None:
         default=1,
         choices=(1, 2, 4, 8),
         help="corners stored per baked-grid row: PACKx the grid memory "
-        "for 8/PACK count-bound gathers per sample, identical output "
-        "(gather throughput is count-bound on TPU)",
+        "for 8/PACK gathers per sample, identical output",
     )
 
 
@@ -296,8 +293,8 @@ def apply_baking(args, fine, params):
         bbox_tag = hashlib.md5(
             repr((tuple(fine.bbox_min), tuple(fine.bbox_max))).encode()
         ).hexdigest()[:8]
-        # ".seg128" versions the on-disk layout (tile-aligned segmented
-        # 128-lane physical rows, round 5): an old-layout cache has
+        # ".seg128" versions the on-disk layout (segmented 128-lane
+        # physical rows): an old-layout cache has
         # valid row indices for the new addressing and would misread
         # SILENTLY.
         cache_path = (

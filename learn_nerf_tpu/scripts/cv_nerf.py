@@ -14,6 +14,7 @@ import numpy as np
 from ..data.dataset import NeRFDataset, load_dataset
 from ..train import TrainLoop
 from .common import add_model_args, create_model, seeded_key
+from ..utils.device import use_compile_cache
 
 
 def chunk_indices(num_chunks: int, indices: List[int]) -> Iterator[Set[int]]:
@@ -44,6 +45,7 @@ def validation_losses(key, loop: TrainLoop, data: NeRFDataset, batch_size: int):
 
 
 def main(argv=None):
+    use_compile_cache()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--lr", type=float, default=1e-4)

@@ -2,7 +2,7 @@
 PSNR (and SSIM).
 
 No reference counterpart (the reference only logs MSE losses); this is the
-measurement tool behind BASELINE.md's "matched PSNR" comparisons.  Prints
+measurement tool for matched-PSNR comparisons.  Prints
 per-view and mean PSNR in dB (plus SSIM, Wang et al. 2004) over u8
 pixels, with final summary lines ``mean_psnr=<dB>`` / ``mean_ssim=<s>``
 for scripting.
@@ -15,9 +15,11 @@ import numpy as np
 from ..data.dataset import load_dataset
 from ..utils.metrics import psnr, ssim
 from .render_nerf import RenderSession, base_argparser
+from ..utils.device import use_compile_cache
 
 
 def main(argv=None):
+    use_compile_cache()
     parser = base_argparser()
     parser.add_argument(
         "--max_views", type=int, default=None, help="evaluate only the first N views"

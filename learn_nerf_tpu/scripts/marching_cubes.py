@@ -6,7 +6,7 @@ model, surfaced at ``--threshold``, x/z flipped, rescaled/centered, written
 as OBJ — or STL, which the reference advertises but whose writer is dead
 code (``marching_cubes.py:79``, ``:111``); here it works.
 
-TPU-first: the grid sweep is one jitted ``lax.map`` over row-tiles instead
+The grid sweep is one jitted ``lax.map`` over row-tiles instead
 of a host loop over batches (``marching_cubes.py:56-62``).
 """
 
@@ -18,6 +18,7 @@ from ..checkpoint import load_params_pickle
 from ..data.dataset import ModelMetadata
 from ..mesh import marching_tetrahedra, write_obj, write_stl
 from .common import add_model_args, create_model
+from ..utils.device import use_compile_cache
 
 
 def grid_coordinates(bbox_min, bbox_max, grid_size: int) -> np.ndarray:
@@ -30,6 +31,7 @@ def grid_coordinates(bbox_min, bbox_max, grid_size: int) -> np.ndarray:
 
 
 def main(argv=None):
+    use_compile_cache()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--batch_size", type=int, default=8192, help="points per tile")
     parser.add_argument(

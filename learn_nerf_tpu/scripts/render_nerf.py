@@ -4,7 +4,7 @@ CLI parity with the reference (``learn_nerf/scripts/render_nerf.py``):
 positional ``metadata_json view_json... output_png``, same flags, frames
 concatenated horizontally, u8 encoding ``(x + 1) * 127.5``.
 
-TPU-first: the whole frame renders as ONE device program (rays tiled and
+The whole frame renders as ONE device program (rays tiled and
 scanned inside a single jit, ``render.render_frame``) instead of the
 reference's chunked host loop with a device sync and ``jnp.concatenate``
 per chunk (``scripts/render_nerf.py:88-92``).
@@ -27,6 +27,7 @@ from .common import (
     create_model,
     seeded_key,
 )
+from ..utils.device import use_compile_cache
 
 
 def base_argparser() -> argparse.ArgumentParser:
@@ -193,6 +194,7 @@ class RenderSession:
 
 
 def main(argv=None):
+    use_compile_cache()
     parser = argparser()
     parser.add_argument("view_json", type=str, nargs="+")
     parser.add_argument("output_png", type=str)

@@ -19,6 +19,7 @@ import numpy as np
 
 from ..data.camera import CameraView
 from .render_nerf import RenderSession, argparser
+from ..utils.device import use_compile_cache
 
 
 def rotate(view: CameraView, axis: np.ndarray, angle: float) -> None:
@@ -73,6 +74,7 @@ def apply_command(view: CameraView, cmd: str, move: float, turn: float) -> bool:
 
 
 def main(argv=None, input_stream=None):
+    use_compile_cache()
     parser = argparser()
     parser.add_argument("--move_step", type=float, default=0.1)
     parser.add_argument("--turn_step", type=float, default=0.1)

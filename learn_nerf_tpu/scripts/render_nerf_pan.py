@@ -12,6 +12,7 @@ import numpy as np
 from ..data.camera import CameraView
 from ..utils.progress import progress
 from .render_nerf import RenderSession, argparser
+from ..utils.device import use_compile_cache
 
 FOV = math.radians(60.0)
 
@@ -64,6 +65,7 @@ def orbit_views(
 
 
 def main(argv=None):
+    use_compile_cache()
     parser = argparser()
     parser.add_argument("--frames", type=int, default=10)
     parser.add_argument("--distance", type=float, default=2.0)

@@ -10,6 +10,7 @@ import numpy as np
 from ..data.camera import CameraView
 from ..utils.progress import progress
 from .render_nerf import RenderSession, argparser
+from ..utils.device import use_compile_cache
 
 
 def spin_views(view: CameraView, num_frames: int):
@@ -33,6 +34,7 @@ def spin_views(view: CameraView, num_frames: int):
 
 
 def main(argv=None):
+    use_compile_cache()
     parser = argparser()
     parser.add_argument("--frames", type=int, default=10)
     parser.add_argument("view_json", type=str)

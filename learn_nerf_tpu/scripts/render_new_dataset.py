@@ -27,9 +27,11 @@ from .common import (
     create_model,
     seeded_key,
 )
+from ..utils.device import use_compile_cache
 
 
 def main(argv=None):
+    use_compile_cache()
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--batch_size", type=int, default=1024, help="rays per tile")

@@ -34,6 +34,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..data.camera import CameraView
 from .render_nerf import RenderSession, base_argparser
+from ..utils.device import use_compile_cache
 
 MAX_SIDE = 8192  # request sanity cap (8k^2 rays is ~64M — still one program)
 
@@ -137,6 +138,7 @@ def make_server(args) -> ThreadingHTTPServer:
 
 
 def main(argv=None):
+    use_compile_cache()
     args = argparser().parse_args(argv)
     server = make_server(args)
     host, port = server.server_address[:2]

@@ -9,11 +9,13 @@ Adam with the reference defaults (``train.py:30-32``); the logged dict
 carries per-term losses plus ``grad_norm`` / ``param_norm``
 (``train.py:92-104``).
 
-TPU-first: the step is one jitted program whose ray batch is sharded over
-the mesh ``data`` axis; params are replicated and GSPMD inserts the gradient
-all-reduce.  The state is donated so Adam updates happen in place in HBM.
+The step is one jitted program whose ray batch is sharded over the mesh
+``data`` axis; params are replicated and GSPMD inserts the gradient
+all-reduce.  The state is donated so Adam updates happen in place in
+device memory.
 """
 
+import dataclasses
 from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
@@ -21,7 +23,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax.training import train_state
 from jax.sharding import Mesh
 
 from .acceleration import OccupancyGrid
@@ -116,8 +117,15 @@ def compute_losses(
     return total, loss_dict
 
 
-class EmaTrainState(train_state.TrainState):
-    """TrainState plus Polyak-averaged eval params.
+@partial(
+    jax.tree_util.register_dataclass,
+    data_fields=["step", "params", "opt_state", "ema_params"],
+    meta_fields=["tx"],
+)
+@dataclasses.dataclass(frozen=True)
+class TrainState:
+    """Params, optimizer state and step counter, plus Polyak-averaged eval
+    params.
 
     ``ema_params`` is ``None`` when EMA is disabled (the default) — the
     field then adds nothing to the checkpoint or the compiled step.  When
@@ -130,7 +138,28 @@ class EmaTrainState(train_state.TrainState):
     same trick (EMA of weights for eval).
     """
 
+    step: Any
+    params: Any
+    opt_state: Any
+    tx: optax.GradientTransformation
     ema_params: Any = None
+
+    replace = dataclasses.replace
+
+    @classmethod
+    def create(cls, params: Any, tx: optax.GradientTransformation, ema_params: Any = None):
+        return cls(
+            step=0, params=params, opt_state=tx.init(params), tx=tx,
+            ema_params=ema_params,
+        )
+
+    def apply_gradients(self, grads: Any) -> "TrainState":
+        updates, opt_state = self.tx.update(grads, self.opt_state, self.params)
+        return self.replace(
+            step=self.step + 1,
+            params=optax.apply_updates(self.params, updates),
+            opt_state=opt_state,
+        )
 
 
 def _ema_seed(params: Any) -> Any:
@@ -142,7 +171,7 @@ def _ema_seed(params: Any) -> Any:
     return jax.tree_util.tree_map(jnp.copy, params)
 
 
-def _ema_step(state: EmaTrainState, decay: float) -> EmaTrainState:
+def _ema_step(state: TrainState, decay: float) -> TrainState:
     """One in-jit EMA update after ``apply_gradients``."""
     return state.replace(
         ema_params=jax.tree_util.tree_map(
@@ -224,8 +253,7 @@ class TrainLoop:
             fine=fine_vars["params"],
             background=jnp.array([-1.0, -1.0, -1.0]),
         )
-        state = EmaTrainState.create(
-            apply_fn=None,
+        state = TrainState.create(
             params=params,
             tx=optax.adam(lr, b1=adam_b1, b2=adam_b2, eps=adam_eps),
             ema_params=_ema_seed(params) if ema_decay is not None else None,
@@ -254,7 +282,7 @@ class TrainLoop:
         def step_auto(state, base_key, batch):
             # Per-step key derived ON DEVICE from the optimizer step counter:
             # the host never dispatches jax.random.split per step (each tiny
-            # dispatch is a relay round trip on remote TPU runtimes).
+            # dispatch costs a host round trip).
             return step_body(state, jax.random.fold_in(base_key, state.step), batch)
 
         self._auto_step_fn = step_auto
@@ -262,8 +290,8 @@ class TrainLoop:
         @partial(jax.jit, donate_argnums=0)
         def step_auto_scan(state, base_key, batches):
             # K steps as ONE device program (same rationale as
-            # OccupancyTrainLoop.step_auto_many: every dispatch is a relay
-            # round trip on remote TPU runtimes).  Keys fold state.step
+            # OccupancyTrainLoop.step_auto_many: fewer dispatches).  Keys
+            # fold state.step
             # exactly like step_auto, so K scanned steps are bit-identical
             # to K step_auto calls.
             def body(state, batch):
@@ -561,7 +589,7 @@ class OccupancyTrainLoop:
     defaults off.  On pool overflow the trailing rays of the batch lose
     their samples (slots assign ray-major); random batches spread that
     loss over different rays every step, which measured harmless at
-    budget 12 vs demand ~32 (BASELINE.md).
+    budget 12 vs demand ~32 on a compound scene.
     """
 
     def __init__(
@@ -626,8 +654,7 @@ class OccupancyTrainLoop:
             fine=variables["params"],
             background=jnp.array([-1.0, -1.0, -1.0]),
         )
-        state = EmaTrainState.create(
-            apply_fn=None,
+        state = TrainState.create(
             params=params,
             tx=optax.adam(lr, b1=adam_b1, b2=adam_b2, eps=adam_eps),
             ema_params=_ema_seed(params) if ema_decay is not None else None,
@@ -704,10 +731,9 @@ class OccupancyTrainLoop:
         @partial(jax.jit, donate_argnums=(0, 1), static_argnums=(2,))
         def step_auto_scan(state, grid_state, budget, base_key, batches):
             # K training steps + their grid-refresh cadence as ONE device
-            # program (lax.scan): on remote-TPU runtimes every dispatch is
-            # a relay round trip, so amortizing K steps per dispatch
-            # recovers the gap between device-bound and end-to-end
-            # throughput.  Key derivation and refresh cadence are
+            # program (lax.scan), amortizing per-dispatch host cost over K
+            # steps (whether that pays on the H100 is not yet measured,
+            # ROADMAP D5).  Key derivation and refresh cadence are
             # identical to the per-step path (keys fold state.step under
             # tag 0, refresh keys fold it under tag 1; refresh fires
             # BEFORE the step whenever state.step % update_interval == 0),
@@ -911,7 +937,7 @@ class OccupancyTrainLoop:
         that straddles ``pool_start_step`` is split at the boundary into
         a dense dispatch and a pooled one — one extra dispatch (and
         compile shape), exact per-step switchover semantics even when
-        ``pool_start_step`` is not macro-aligned (ADVICE round 3).  The
+        ``pool_start_step`` is not macro-aligned.  The
         auto budget holds for the whole macro step (the budget re-measure
         cadence rounds up to macro boundaries).  Returns the LAST step's
         logging dict.
@@ -963,8 +989,7 @@ class OccupancyTrainLoop:
         """Checkpoint: params (the EMA average when enabled) plus the
         occupancy grid densities and the loop's step counter (so a pickle
         resume keeps its cadence — pooled switchover, grid-refresh phase —
-        instead of re-waiting ``pool_start_step`` dense steps; VERDICT
-        round 2)."""
+        instead of re-waiting ``pool_start_step`` dense steps)."""
         from .checkpoint import save_params_pickle
 
         payload = dict(

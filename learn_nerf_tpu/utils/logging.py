@@ -6,8 +6,8 @@ working, and adds a throughput counter (rays/sec) the reference lacks
 (SURVEY.md section 5).
 
 The reference formats its log line with a blocking ``float()`` per metric
-every step — one device->host round trip per metric, which on a remote
-TPU runtime can cost more than the step itself.  This logger instead
+every step — one device->host round trip per metric, each of which
+stalls the device queue.  This logger instead
 
 * starts an async host copy of every metric the moment it is logged
   (``copy_to_host_async`` — overlaps the transfer with the next step's

@@ -45,10 +45,10 @@ def cube_color(origins, dirs, half=0.5):
     return colors
 
 
-def orbit_views(n, distance=2.0, fov=1.0):
+def orbit_views(n, distance=2.0, fov=1.0, phase=0.0):
     views = []
     for i in range(n):
-        theta = 2 * np.pi * i / n
+        theta = 2 * np.pi * i / n + phase
         phi = 0.3 * np.sin(3 * theta)
         z = -np.array(
             [np.cos(theta) * np.cos(phi), np.sin(theta) * np.cos(phi), np.sin(phi)]
@@ -69,11 +69,16 @@ def orbit_views(n, distance=2.0, fov=1.0):
     return views
 
 
-def write_dataset(out_dir, num_views=8, resolution=24):
+def write_dataset(out_dir, num_views=8, resolution=24, seed=None):
+    """Write the cube scene; ``seed`` rotates the orbit's starting angle
+    (None keeps the fixed orbit)."""
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "metadata.json"), "w") as f:
         json.dump(dict(min=[-0.7] * 3, max=[0.7] * 3), f)
-    for i, view in enumerate(orbit_views(num_views)):
+    phase = 0.0
+    if seed is not None:
+        phase = np.random.RandomState(seed).uniform(0.0, 2 * np.pi / num_views)
+    for i, view in enumerate(orbit_views(num_views, phase=phase)):
         rays = view.bare_rays(resolution, resolution)
         colors = cube_color(rays[:, 0], rays[:, 1])
         img = colors.reshape(resolution, resolution, 3)

@@ -375,8 +375,7 @@ def test_cosine_full_state_resume_caps_steps(
 ):
     """--steps is the TOTAL decay span on the FULL-STATE resume path too:
     resuming an 8-step full-state checkpoint with --steps 12 trains 4
-    more steps (ADVICE round 3 — it used to train 12 MORE, overshooting
-    the decay span at the floor lr).  No schedule offset here: the
+    more steps.  No schedule offset here: the
     restored optimizer count drives the schedule natively.  Covers both
     full-state layouts (plain TrainState; occupancy (state, grid) tuple)
     through checkpoint.peek_train_state_step."""

@@ -194,7 +194,7 @@ def test_prefetch_to_device_order_and_depth():
 def test_multihost_shuffle_more_processes_than_views():
     """With more processes than views the partition switches to ray-level
     striding: every host still gets a nonempty, disjoint slice and the
-    union covers every ray exactly once (VERDICT round 2, weak #6)."""
+    union covers every ray exactly once."""
     from learn_nerf_tpu.data.shuffle import ShuffledDataset
 
     views = make_views(2)
@@ -249,7 +249,7 @@ def test_shuffle_cache_invalidates_on_change():
 
         # A legacy "done" marker (pre-signature cache) cannot be validated
         # against the current dataset: it REBUILDS rather than silently
-        # serving possibly-stale shards (VERDICT round 3 #8).  The rebuilt
+        # serving possibly-stale shards.  The rebuilt
         # cache serves data2's rays even though the marked shards held
         # data3's.
         with open(os.path.join(tmp, "done"), "w") as f:
@@ -364,8 +364,7 @@ def test_stale_marker_removed_before_rebuild_truncates(tmp_path):
 def test_legacy_cache_always_rebuilds(tmp_path):
     """A pre-signature 'done' marker can never be validated against the
     current dataset, so it always rebuilds — even with an exactly-matching
-    shard-file count (VERDICT round 3 #8 closed the last acceptance
-    path)."""
+    shard-file count."""
     import os
 
     from learn_nerf_tpu.data.shuffle import ShuffledDataset

@@ -112,7 +112,7 @@ def test_checkpoint_roundtrip(tmp_path):
     loop = new_loop()
     loop.step(jax.random.PRNGKey(1), make_batch(32))
     pkl = str(tmp_path / "nerf.pkl")
-    full = str(tmp_path / "state.msgpack")
+    full = str(tmp_path / "state.npz")
     loop.save(pkl)
     loop.save_full(full)
 
@@ -424,7 +424,7 @@ def test_ema_eval_params_recurrence_and_checkpoint(tmp_path):
     assert resumed.state.ema_params is not None
 
     # Full-state checkpoint round-trips the subclassed field.
-    full = str(tmp_path / "ema.msgpack")
+    full = str(tmp_path / "ema.npz")
     loop.save_full(full)
     other = new_loop(0.5)
     other.load_full(full)
@@ -439,14 +439,12 @@ def test_ema_eval_params_recurrence_and_checkpoint(tmp_path):
 
 def test_full_state_ema_field_migration(tmp_path):
     """Full-state checkpoints survive the ema_params field in BOTH
-    directions: pre-field blobs load into current templates (with or
+    directions: blobs saved without an average load into current templates (with or
     without --ema: the average seeds from the checkpointed params), and
     EMA checkpoints resumed into an EMA-off loop DROP the stale average
     (eval must follow the raw params again)."""
     import jax
-    from flax import serialization
 
-    import learn_nerf_tpu.checkpoint as ck
     from learn_nerf_tpu.models import NeRFModel
     from learn_nerf_tpu.train import TrainLoop
 
@@ -463,11 +461,9 @@ def test_full_state_ema_field_migration(tmp_path):
     src = mk(None)
     src.step(jax.random.PRNGKey(1), batch)
 
-    # A pre-ema-era blob: today's state dict with the field stripped.
-    old = dict(serialization.to_state_dict(jax.device_get(src.state)))
-    old.pop("ema_params", None)
-    old_path = str(tmp_path / "old.msgpack")
-    ck._atomic_write(old_path, serialization.msgpack_serialize(old))
+    # A blob without an average: an EMA-off state saves no ema leaves.
+    old_path = str(tmp_path / "old.npz")
+    src.save_full(old_path)
 
     plain = mk(None)
     plain.load_full(old_path)
@@ -487,7 +483,7 @@ def test_full_state_ema_field_migration(tmp_path):
     # eval_params tracks the live params, not a frozen tree.
     on = mk(0.5)
     on.step(jax.random.PRNGKey(1), batch)
-    on_path = str(tmp_path / "on.msgpack")
+    on_path = str(tmp_path / "on.npz")
     on.save_full(on_path)
     off = mk(None)
     off.load_full(on_path)

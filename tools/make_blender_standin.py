@@ -12,8 +12,7 @@ The transform matrix is built by INVERTING the converter's decode
 (x = R @ [1,0,0], y = R @ [0,-1,0], z = R @ [0,0,-1],
 ``convert_dataset/blender.py:36-42``): R's columns are (x, -y, -z) of the
 view used to render the image, so a converted dataset reproduces the
-render cameras bit-for-bit — verified by tests/test_convert.py and the
-converted-scene train+eval in BASELINE.md.
+render cameras bit-for-bit — verified by tests/test_convert.py.
 
 Usage: python tools/make_blender_standin.py out_dir [resolution] [n_views]
 """

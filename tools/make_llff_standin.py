@@ -1,7 +1,7 @@
 """Generate a synthetic forward-facing capture in LLFF format.
 
-No real LLFF capture is available offline, so this builds one (BASELINE.md
-config 5 stand-in): a handheld-style grid of cameras at z ~ -2.2 looking at
+No real LLFF capture is available offline, so this builds one (a
+stand-in for forward-facing scenes): a handheld-style grid of cameras at z ~ -2.2 looking at
 the colored unit cube of tests/synthetic_scene, stored EXACTLY as LLFF
 expects it — ``poses_bounds.npy`` ([N,17], bmild/nerf pose convention) plus
 ``images/*.png`` — so ``convert/llff.py`` runs unmodified on it.

@@ -1,7 +1,7 @@
 """Generate a multi-feature compound STL scene for benchmark datasets.
 
-BASELINE.md configs 2-3 call for matched-PSNR measurements on a scene that
-is *not* a trivial cube: this builds a compound mesh (torus + sphere +
+Matched-PSNR measurements need a scene that is *not* a trivial cube: this
+builds a compound mesh (torus + sphere +
 boxes + cone + cylinder, thin and thick features, concavities, occlusion)
 and writes a binary STL that ``bin/simple_dataset`` turns into a NeRF
 dataset (the tool normalizes the mesh to unit size, so absolute scale here

@@ -1,12 +1,13 @@
-"""Measure the baked NGP frame renderer vs the live hash stack.
+"""Measure the baked NGP frame renderer vs the live hash stack, on one GPU.
 
-For VERDICT round 3 #1: 800x800 full-quality NGP frame on ONE chip, baked
-PSNR within 0.1 dB of the unbaked render.  Renders the same view with the
-same PRNG key through the live pooled path and through ``--baked`` at one
-or more resolutions, timing steady-state frames (host-fetch synchronized;
-block_until_ready is unreliable on this backend) and reporting PSNR of
-baked vs live (same key -> identical candidate jitter, so the PSNR
-isolates bake interpolation error).
+Target: an 800x800 full-quality NGP frame on ONE card, baked PSNR within
+0.1 dB of the unbaked render.  Renders the same view with the same PRNG
+key through the live pooled path and through ``--baked`` at one or more
+resolutions, timing steady-state frames (each timed window ends in
+``jax.block_until_ready``) and reporting PSNR of baked vs live (same key
+-> identical candidate jitter, so the PSNR isolates bake interpolation
+error).  The first lines name the device and the card's power limit;
+without a GPU the tool exits non-zero.
 
 Usage:
   python tools/measure_baked.py CKPT METADATA VIEW [--size 800]
@@ -36,7 +37,7 @@ def psnr_float(a, b):
     return float("inf") if mse == 0 else 10.0 * np.log10(2.0**2 / mse)
 
 
-def main():
+def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("ckpt")
     p.add_argument("metadata_json")
@@ -68,8 +69,11 @@ def main():
         help="block-word span probes at this stride (see "
         "--occ_span_block_gather; requires --span_candidates > 0)",
     )
-    args = p.parse_args()
+    return p.parse_args(argv)
 
+
+def measure(args):
+    """Render live and baked frames and print one report line each."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -142,16 +146,8 @@ def main():
         dropped, selected = int(out["dropped"]), int(out["selected"])
         t0 = time.time()
         for _ in range(args.reps):
-            # session.render host-fetches int(out["dropped"]) internally —
-            # a scalar output of the same one-program frame executable, so
-            # each rep is already synchronized.  An extra per-rep
-            # jnp.sum+fetch costs 2 more relay round trips (~0.2-0.4 s),
-            # which inflates the FAST baked frames far more than the slow
-            # live baseline and understates the measured speedup.
             out = session.render(key, rays)
-        # Belt-and-braces chain fence once, outside the timed window: a
-        # value that depends on the field-model outputs themselves.
-        float(out["outputs"][0, 0])
+        jax.block_until_ready(out)
         per_frame = (time.time() - t0) / args.reps
         print(
             f"{tag}: {per_frame:.3f} s/frame "
@@ -176,6 +172,22 @@ def main():
             flush=True,
         )
         del baked_params
+
+
+def main(argv=None):
+    from learn_nerf_tpu.utils.device import (
+        device_summary,
+        gpu_name_and_power_limit,
+        require_gpu,
+        use_compile_cache,
+    )
+
+    args = parse_args(argv)
+    use_compile_cache()
+    require_gpu()
+    print(f"device: {device_summary()}", flush=True)
+    print(f"gpu: {gpu_name_and_power_limit()}", flush=True)
+    measure(args)
 
 
 if __name__ == "__main__":
